@@ -1,6 +1,6 @@
-// Native IO runtime for cudasbmp_tpu.
+// Native IO runtime for cudasbmp_jax.
 //
-// TPU-native counterpart of the reference's C++/CUDA helper layer
+// Counterpart of the reference's C++/CUDA helper layer
 // (src/helper/helper.cu: readObstaclesFromCSV, copyAndWriteVectorToCSV
 // templates in include/helper/helper.cuh:53-79): bulk CSV formatting/parsing
 // is host-side native code, not Python. Exposed with a plain C ABI and bound

@@ -7,10 +7,10 @@ import jax
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.parallel.batch_kgmt import ArenaMultiQueryPlanner
-from cudasbmp_tpu.parallel.mesh import make_planner_mesh
-from cudasbmp_tpu.systems.registry import get_system
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.parallel.batch_kgmt import ArenaMultiQueryPlanner
+from cudasbmp_jax.parallel.mesh import make_planner_mesh
+from cudasbmp_jax.systems.registry import get_system
 
 # wave width 512 keeps CPU runtime low; 40 windows give the thinner waves
 # room to reach the goal
@@ -207,7 +207,7 @@ def test_arena_anytime_mode():
 def test_arena_monte_carlo_sweep():
     """MonteCarloPlanner(impl='arena'): random per-scenario obstacle sets
     ride the arena's vmapped kernel path; sweep solves a healthy fraction."""
-    from cudasbmp_tpu.parallel.monte_carlo import MonteCarloPlanner
+    from cudasbmp_jax.parallel.monte_carlo import MonteCarloPlanner
 
     cfg = ARENA_CONFIG.replace(num_iterations=30, max_tree_size=512 * 31)
     mc = MonteCarloPlanner(cfg, mesh=make_planner_mesh(), impl="arena")
@@ -218,55 +218,55 @@ def test_arena_monte_carlo_sweep():
 
 
 def test_arena_permutation_paths_bitwise_equal(monkeypatch):
-    """The MXU one-hot permutation path (R <= _PERMUTE_MATMUL_MAX_R) must be
-    BITWISE identical to the argsort + take_along_axis path it replaces: a
-    permutation one-hot selects exactly one f32 term per output and index
-    columns stay below 2^24, so no float rounding can differ (perf.md r3,
-    tools/r3_probe3.py: the gather path was 78% of the arena iteration)."""
-    import cudasbmp_tpu.parallel.batch_kgmt as bk
+    """The one-hot permutation path (R <= _PERMUTE_MATMUL_MAX_R) must be
+    BITWISE identical to the argsort + take_along_axis path: a permutation
+    one-hot selects exactly one f32 term per output and index columns stay
+    below 2^24, so no float rounding can differ."""
+    import cudasbmp_jax.parallel.batch_kgmt as bk
 
     cfg = KGMTConfig(rollouts_per_iter=128, max_tree_size=128 * 101,
                      num_iterations=100, rollout_backend="jnp")
     B = 4
     inits, goals, obstacles = _demo_batch(B, vary_goals=True)
-    assert cfg.rollouts_per_iter <= bk._PERMUTE_MATMUL_MAX_R
-    res_mxu = ArenaMultiQueryPlanner(cfg).plan_batch(
+    monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", cfg.rollouts_per_iter)
+    res_onehot = ArenaMultiQueryPlanner(cfg).plan_batch(
         inits, goals, obstacles, seed=5)
     monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", 0)
     res_gather = ArenaMultiQueryPlanner(cfg).plan_batch(
         inits, goals, obstacles, seed=5)
-    assert res_mxu.solved.any()  # non-degenerate comparison
-    np.testing.assert_array_equal(res_mxu.solved, res_gather.solved)
-    np.testing.assert_array_equal(res_mxu.costs, res_gather.costs)
-    np.testing.assert_array_equal(res_mxu.iterations, res_gather.iterations)
-    np.testing.assert_array_equal(res_mxu.paths, res_gather.paths)
-    np.testing.assert_array_equal(res_mxu.tree_sizes, res_gather.tree_sizes)
+    assert res_onehot.solved.any()  # non-degenerate comparison
+    np.testing.assert_array_equal(res_onehot.solved, res_gather.solved)
+    np.testing.assert_array_equal(res_onehot.costs, res_gather.costs)
+    np.testing.assert_array_equal(res_onehot.iterations, res_gather.iterations)
+    np.testing.assert_array_equal(res_onehot.paths, res_gather.paths)
+    np.testing.assert_array_equal(res_onehot.tree_sizes, res_gather.tree_sizes)
 
 
 def test_arena_permutation_parity_with_goal_bias(monkeypatch):
     """Same bitwise parity through the goal-bias top-k parent assignment
     (j is an arbitrary index map there, not just round-robin)."""
-    import cudasbmp_tpu.parallel.batch_kgmt as bk
+    import cudasbmp_jax.parallel.batch_kgmt as bk
 
     cfg = KGMTConfig(rollouts_per_iter=128, max_tree_size=128 * 101,
                      num_iterations=100, rollout_backend="jnp",
                      goal_bias=0.25, goal_bias_k=8)
     B = 2
     inits, goals, obstacles = _demo_batch(B)
-    res_mxu = ArenaMultiQueryPlanner(cfg).plan_batch(
+    monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", cfg.rollouts_per_iter)
+    res_onehot = ArenaMultiQueryPlanner(cfg).plan_batch(
         inits, goals, obstacles, seed=7)
     monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", 0)
     res_gather = ArenaMultiQueryPlanner(cfg).plan_batch(
         inits, goals, obstacles, seed=7)
-    np.testing.assert_array_equal(res_mxu.solved, res_gather.solved)
-    np.testing.assert_array_equal(res_mxu.costs, res_gather.costs)
-    np.testing.assert_array_equal(res_mxu.paths, res_gather.paths)
+    np.testing.assert_array_equal(res_onehot.solved, res_gather.solved)
+    np.testing.assert_array_equal(res_onehot.costs, res_gather.costs)
+    np.testing.assert_array_equal(res_onehot.paths, res_gather.paths)
 
 
 def test_arena_auto_capacity_derivation():
     """auto_capacity derives tree capacity from the iteration budget:
     exactly num_iterations windows plus the root block, no max_tree_size
-    coupling (VERDICT r3 weak 6)."""
+    coupling."""
     import warnings
 
     cfg = ARENA_CONFIG.replace(num_iterations=13, max_tree_size=1)  # ignored

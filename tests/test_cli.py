@@ -18,7 +18,7 @@ def run_cli(*args, timeout=420):
         "os.environ['XLA_FLAGS']=os.environ.get('XLA_FLAGS','')"
         "+' --xla_force_host_platform_device_count=8';"
         "import jax; jax.config.update('jax_platforms','cpu');"
-        "from cudasbmp_tpu.cli import main;"
+        "from cudasbmp_jax.cli import main;"
         f"import sys; sys.exit(main({list(args)!r}))"
     )
     return subprocess.run(
@@ -30,15 +30,15 @@ def run_cli(*args, timeout=420):
 def test_cli_flag_overrides_config_file_even_at_default_value(tmp_path):
     """An explicit flag must beat --config even when its value equals the
     dataclass default (e.g. --seed 0 over a file's seed: 42)."""
-    from cudasbmp_tpu.cli import _config_from_args, main  # noqa: F401
+    from cudasbmp_jax.cli import _config_from_args, main  # noqa: F401
     import argparse
 
-    from cudasbmp_tpu.config import KGMTConfig
+    from cudasbmp_jax.config import KGMTConfig
 
     cfg_file = tmp_path / "cfg.json"
     KGMTConfig(seed=42, N=8, n=4).to_file(str(cfg_file))
     parser = argparse.ArgumentParser()
-    from cudasbmp_tpu.cli import _add_config_args
+    from cudasbmp_jax.cli import _add_config_args
 
     _add_config_args(parser)
     args = parser.parse_args(["--config", str(cfg_file), "--seed", "0"])
@@ -161,7 +161,7 @@ def test_cli_sharded_with_checkpointing(tmp_path):
 def test_cli_demo_pathless(capsys):
     """--no-need-path solves without a tree and rejects path-dependent
     flags."""
-    from cudasbmp_tpu.cli import main
+    from cudasbmp_jax.cli import main
 
     rc = main(["demo", "--no-need-path", "--num-iterations", "60",
                "--max-tree-size", "8192", "--rollouts-per-iter", "512",

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.geometry.footprint import footprint_clear, footprint_corners
-from cudasbmp_tpu.ops.rollout import rollout_batch
-from cudasbmp_tpu.ops.rollout_pallas import rollout_pallas
-from cudasbmp_tpu.planners.kgmt import KGMT
-from cudasbmp_tpu.systems import KinematicBicycle, Point2D
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.geometry.footprint import footprint_clear, footprint_corners
+from cudasbmp_jax.ops.rollout import rollout_batch
+from cudasbmp_jax.ops.rollout_pallas import rollout_pallas
+from cudasbmp_jax.planners.kgmt import KGMT
+from cudasbmp_jax.systems import KinematicBicycle, Point2D
 
 
 def clear1(x, y, theta, hl, hw, boxes):

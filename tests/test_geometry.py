@@ -5,12 +5,12 @@ incl. boundary and out-of-range -> -1 (KGMT.cu:602-629)."""
 import jax.numpy as jnp
 import numpy as np
 
-from cudasbmp_tpu.geometry.aabb import (
+from cudasbmp_jax.geometry.aabb import (
     point_in_any_obstacle,
     segment_aabb,
     segments_clear_batch,
 )
-from cudasbmp_tpu.geometry.grid import OccupancyGrid, RegionGrid
+from cudasbmp_jax.geometry.grid import OccupancyGrid, RegionGrid
 
 
 def reference_is_broad_phase_valid(bb_min, bb_max, obs):

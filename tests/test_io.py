@@ -5,16 +5,16 @@ resume, native CSV fast path."""
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from cudasbmp_tpu.io.csv import (
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.io.checkpoint import load_checkpoint, save_checkpoint
+from cudasbmp_jax.io.csv import (
     load_scenario,
     read_obstacles_csv,
     read_sample_csv,
     write_artifacts,
     write_csv,
 )
-from cudasbmp_tpu.planners.kgmt import KGMT
+from cudasbmp_jax.planners.kgmt import KGMT
 
 
 @pytest.fixture()
@@ -61,7 +61,7 @@ def test_obstacles_csv_roundtrip(tmp_path):
 
 
 def test_write_artifacts_names(tmp_path, small_config, demo_scenario):
-    from cudasbmp_tpu.io.csv import REFERENCE_ARTIFACT_NAMES
+    from cudasbmp_jax.io.csv import REFERENCE_ARTIFACT_NAMES
 
     result = KGMT(small_config).plan(demo_scenario)
     written = write_artifacts(result.state, small_config, tmp_path)
@@ -116,7 +116,7 @@ def test_checkpoint_roundtrip_and_exact_resume(small_config, demo_scenario, tmp_
 
 
 def test_native_csv_available_and_fast():
-    from cudasbmp_tpu.io.native import native_available
+    from cudasbmp_jax.io.native import native_available
 
     assert native_available(), "native IO library should build in this image"
 
@@ -149,8 +149,8 @@ os.environ['XLA_FLAGS'] = '--xla_force_host_platform_device_count=1'
 import jax; jax.config.update('jax_platforms', 'cpu')
 import sys
 sys.path.insert(0, {str(__import__('pathlib').Path(__file__).resolve().parent.parent)!r})
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.planners.kgmt import KGMT
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.planners.kgmt import KGMT
 cfg = KGMTConfig(num_iterations=60, max_tree_size=16384,
                  rollouts_per_iter=2048, seed=3)
 KGMT(cfg).plan_recorded(Scenario.demo(), {str(tmp_path)!r},
@@ -204,16 +204,16 @@ def test_pathless_checkpoint_roundtrip_and_resume(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from cudasbmp_tpu.config import KGMTConfig, Scenario
-    from cudasbmp_tpu.geometry.grid import RegionGrid
-    from cudasbmp_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-    from cudasbmp_tpu.planners.kgmt import (
+    from cudasbmp_jax.config import KGMTConfig, Scenario
+    from cudasbmp_jax.geometry.grid import RegionGrid
+    from cudasbmp_jax.io.checkpoint import load_checkpoint, save_checkpoint
+    from cudasbmp_jax.planners.kgmt import (
         KGMT,
         PathlessState,
         init_pathless_state,
         kgmt_run_pathless,
     )
-    from cudasbmp_tpu.systems.registry import get_system
+    from cudasbmp_jax.systems.registry import get_system
 
     cfg = KGMTConfig(num_iterations=60, max_tree_size=8192,
                      rollouts_per_iter=512, adaptive_waves=False,

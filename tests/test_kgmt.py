@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.geometry.grid import RegionGrid
-from cudasbmp_tpu.ops.rollout import rollout_batch
-from cudasbmp_tpu.planners.kgmt import KGMT, init_state, update_region_scores
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.geometry.grid import RegionGrid
+from cudasbmp_jax.ops.rollout import rollout_batch
+from cudasbmp_jax.planners.kgmt import KGMT, init_state, update_region_scores
 
 
 @pytest.fixture(scope="module")
@@ -194,20 +194,16 @@ def test_goal_biased_expansion_solves(small_config, demo_scenario):
     assert sum(iters_b) <= sum(iters_u) + 3  # biased never much worse
 
 
-def test_pallas_rng_backend_degrades_off_tpu(small_config, demo_scenario):
-    """rollout_backend='pallas_rng' has no CPU lowering for the TPU hardware
-    PRNG; off-TPU it must degrade to external threefry controls + the
-    interpreted kernel and still solve (the TPU path is exercised by
-    bench.py on the real chip)."""
-    cfg = small_config.replace(rollout_backend="pallas_rng",
-                               rollouts_per_iter=1024)
-    result = KGMT(cfg).plan(demo_scenario)
-    assert result.solved
+def test_fast_math_planner_solves(small_config, demo_scenario, monkeypatch):
+    """fast_math + pallas backend end-to-end, the kernel interpreted:
+    solves with cost in the normal band (fast math changes float rounding,
+    not semantics)."""
+    import functools
 
+    import cudasbmp_jax.planners.kgmt as kgmt
 
-def test_fast_math_planner_solves(small_config, demo_scenario):
-    """fast_math + pallas backend end-to-end: solves with cost in the normal
-    band (fast math changes float rounding, not semantics)."""
+    monkeypatch.setattr(kgmt, "_dispatch_rollout", functools.partial(
+        kgmt._dispatch_rollout, interpret=True))
     cfg = small_config.replace(rollout_backend="pallas", fast_math=True,
                                rollouts_per_iter=1024)
     result = KGMT(cfg).plan(demo_scenario)
@@ -434,7 +430,7 @@ def test_flat_run_matches_nested_adaptive_multiwave(demo_scenario, tmp_path):
 
 
 def test_pathless_matches_tree_mode(small_config, demo_scenario):
-    """need_path=False (VERDICT r4 item 3): the register-frontier
+    """need_path=False: the register-frontier
     feasibility driver must reproduce the tree mode's (solved, cost,
     iterations, tree_size) BITWISE whenever every iteration's accepted
     children fit the R-row frontier buffer — guaranteed here because

@@ -1,13 +1,15 @@
 """Tests for the host data model (Sample/Agent parity layer), the state
 invariant validator, recorded mode, and config-file loading."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.models import Agent, Sample
-from cudasbmp_tpu.planners.kgmt import KGMT
-from cudasbmp_tpu.utils.validate import InvariantViolation, validate_state
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.models import Agent, Sample
+from cudasbmp_jax.planners.kgmt import KGMT
+from cudasbmp_jax.utils.validate import InvariantViolation, validate_state
 
 
 def test_sample_roundtrip():
@@ -103,8 +105,8 @@ def test_invariants_fuzz_random_scenarios():
     sanitizer runs the reference never had (SURVEY.md §5)."""
     import jax
 
-    from cudasbmp_tpu.parallel.monte_carlo import random_scenarios
-    from cudasbmp_tpu.utils.validate import validate_state
+    from cudasbmp_jax.parallel.monte_carlo import random_scenarios
+    from cudasbmp_jax.utils.validate import validate_state
 
     cfg = KGMTConfig(num_iterations=40, max_tree_size=4096,
                      rollouts_per_iter=512)
@@ -141,8 +143,68 @@ def test_config_from_car_yaml():
     assert cfg.N == 16 and cfg.n == 8
 
 
+@pytest.mark.parametrize("name,system", [("car", "bicycle"),
+                                         ("unicycle", "unicycle"),
+                                         ("dubins", "dubins")])
+def test_flat_yaml_loader_reads_system_files(name, system):
+    """The PyYAML-free reader: every systems/*.yaml loads, with its typed
+    values, and survives a write/read round trip."""
+    import tempfile
+    from pathlib import Path
+
+    from cudasbmp_jax.config import parse_flat_yaml
+
+    path = Path("systems") / f"{name}.yaml"
+    data = parse_flat_yaml(path.read_text())
+    assert data["system"] == system
+    assert isinstance(data["N"], int) and isinstance(data["width"], float)
+    cfg = KGMTConfig.from_file(str(path))
+    assert cfg == KGMTConfig.from_dict(data)
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "cfg.yaml")
+        cfg.replace(need_path=False, goal_bias=0.25).to_file(out)
+        assert KGMTConfig.from_file(out) == cfg.replace(need_path=False,
+                                                        goal_bias=0.25)
+
+
+def test_flat_yaml_loader_rejects_nested_values():
+    from cudasbmp_jax.config import parse_flat_yaml
+
+    assert parse_flat_yaml("a: 'x # y'  # c\nb: true\nc: ~\n") == {
+        "a": "x # y", "b": True, "c": None}
+    for bad in ("a:\n  b: 1\n", "a: [1, 2]\n", "just text\n"):
+        with pytest.raises(ValueError):
+            parse_flat_yaml(bad)
+
+
+@pytest.mark.parametrize("env_set", [False, True], ids=["default", "env"])
+def test_compilation_cache_location(env_set, monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing is set over it; without
+    it the cache goes to the fixed <checkout>/.jax_cache."""
+    import jax
+
+    from cudasbmp_jax.utils import cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            monkeypatch.setattr(jax.config, "update", None)  # must not run
+            assert cache.enable_compilation_cache() == str(tmp_path)
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            path = cache.enable_compilation_cache()
+            assert path == str(cache.DEFAULT_CACHE_DIR)
+            assert cache.DEFAULT_CACHE_DIR.parent == Path(__file__).resolve(
+            ).parents[1]
+            assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        monkeypatch.undo()
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
 def test_load_repo_configurations():
-    from cudasbmp_tpu.io.csv import load_scenario
+    from cudasbmp_jax.io.csv import load_scenario
 
     scenario, grid = load_scenario("configurations")
     np.testing.assert_allclose(scenario.init[:2], [1.0, 1.0])

@@ -1,7 +1,7 @@
 """Multi-host simulation without a cluster (SURVEY.md §4.4): two local
 processes under jax.distributed, CPU backend, 4 virtual devices each —
-exercising the same global-mesh + collective path a real 2-host TPU pod
-slice uses (DCN-coordinated global arrays, cross-process psum)."""
+exercising the same global-mesh + collective path two real GPU hosts use
+(network-coordinated global arrays, cross-process psum)."""
 
 import socket
 import subprocess
@@ -28,9 +28,9 @@ WORKER = textwrap.dedent(
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
     sys.path.insert(0, %r)
-    from cudasbmp_tpu.config import KGMTConfig, Scenario
-    from cudasbmp_tpu.parallel.mesh import make_planner_mesh
-    from cudasbmp_tpu.parallel.multi_query import MultiQueryPlanner
+    from cudasbmp_jax.config import KGMTConfig, Scenario
+    from cudasbmp_jax.parallel.mesh import make_planner_mesh
+    from cudasbmp_jax.parallel.multi_query import MultiQueryPlanner
 
     assert jax.device_count() == 8 and jax.local_device_count() == 4
     mesh = make_planner_mesh()  # 8-way scenario axis spanning both processes
@@ -70,8 +70,8 @@ WORKER = textwrap.dedent(
     assert int(solved) >= 4
 
     # --- sharded-tree across processes: the region-stats psum rides the
-    # cross-process (DCN-analog) link every iteration -----------------------
-    from cudasbmp_tpu.parallel.sharded_tree import ShardedTreePlanner
+    # cross-process (cross-host analog) link every iteration -----------------------
+    from cudasbmp_jax.parallel.sharded_tree import ShardedTreePlanner
     cfg2 = KGMTConfig(num_iterations=60, max_tree_size=2048,
                       rollouts_per_iter=512, adaptive_waves=False)
     tree_mesh = make_planner_mesh(n_scenario=1, n_tree=8)
@@ -88,7 +88,7 @@ WORKER = textwrap.dedent(
     # device of the 2-process global mesh, disjoint id ranges; the union
     # must reproduce a LOCAL single-pool sweep bit-for-bit (per-scenario
     # RNG keying) ----------------------------------------------------------
-    from cudasbmp_tpu.parallel.streaming_mc import StreamingMonteCarloPlanner
+    from cudasbmp_jax.parallel.streaming_mc import StreamingMonteCarloPlanner
     scfg = KGMTConfig(rollouts_per_iter=128, num_iterations=30,
                       rollout_backend="jnp", adaptive_waves=False,
                       max_tree_size=2)
@@ -148,10 +148,10 @@ RECOVERY_WORKER = textwrap.dedent(
     import numpy as np
     sys.path.insert(0, %r)
     from pathlib import Path
-    from cudasbmp_tpu.config import KGMTConfig, Scenario
-    from cudasbmp_tpu.io.checkpoint import load_checkpoint
-    from cudasbmp_tpu.parallel.mesh import make_planner_mesh
-    from cudasbmp_tpu.parallel.sharded_tree import ShardedTreePlanner
+    from cudasbmp_jax.config import KGMTConfig, Scenario
+    from cudasbmp_jax.io.checkpoint import load_checkpoint
+    from cudasbmp_jax.parallel.mesh import make_planner_mesh
+    from cudasbmp_jax.parallel.sharded_tree import ShardedTreePlanner
 
     cfg = KGMTConfig(num_iterations=60, max_tree_size=2048,
                      rollouts_per_iter=512, adaptive_waves=False)
@@ -186,7 +186,7 @@ RECOVERY_WORKER = textwrap.dedent(
 
 @pytest.mark.slow
 def test_two_process_kill_and_restart(tmp_path):
-    """Multi-host elastic recovery (SURVEY.md §5, VERDICT r1 item 8): a
+    """Multi-host elastic recovery (SURVEY.md §5): a
     2-process sharded-tree solve is SIGKILLed mid-flight; a fresh 2-process
     job restores the newest intact checkpoint and finishes with the exact
     result an uninterrupted run produces (reference computed in-process on
@@ -198,9 +198,9 @@ def test_two_process_kill_and_restart(tmp_path):
 
     import numpy as np
 
-    from cudasbmp_tpu.config import KGMTConfig, Scenario
-    from cudasbmp_tpu.parallel.mesh import make_planner_mesh
-    from cudasbmp_tpu.parallel.sharded_tree import ShardedTreePlanner
+    from cudasbmp_jax.config import KGMTConfig, Scenario
+    from cudasbmp_jax.parallel.mesh import make_planner_mesh
+    from cudasbmp_jax.parallel.sharded_tree import ShardedTreePlanner
 
     cfg = KGMTConfig(num_iterations=60, max_tree_size=2048,
                      rollouts_per_iter=512, adaptive_waves=False)
@@ -275,17 +275,17 @@ FOURPROC_WORKER = textwrap.dedent(
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
     sys.path.insert(0, %r)
-    from cudasbmp_tpu.config import KGMTConfig, Scenario
-    from cudasbmp_tpu.parallel.mesh import make_planner_mesh
-    from cudasbmp_tpu.parallel.sharded_multi_query import (
+    from cudasbmp_jax.config import KGMTConfig, Scenario
+    from cudasbmp_jax.parallel.mesh import make_planner_mesh
+    from cudasbmp_jax.parallel.sharded_multi_query import (
         ShardedMultiQueryPlanner,
     )
 
     assert jax.device_count() == 8 and jax.local_device_count() == 2
     # (scenario=4, tree=2): the tree pairs are the two LOCAL devices of each
-    # process (ICI analog); the scenario axis spans all four processes, so
-    # its gathers cross 3 DCN-analog hops — the >1-hop pattern the 2-process
-    # test cannot exercise (VERDICT r2 item 7)
+    # process (intra-host analog); the scenario axis spans all four
+    # processes, so its gathers cross 3 cross-host-analog hops — the >1-hop
+    # pattern the 2-process test cannot exercise
     mesh = make_planner_mesh(n_scenario=4, n_tree=2)
 
     cfg = KGMTConfig(num_iterations=60, max_tree_size=8192,
@@ -328,17 +328,17 @@ FOURPROC_WORKER = textwrap.dedent(
 def test_four_process_sharded_multi_query():
     """4 processes x 2 virtual devices: sharded multi-query on the combined
     (scenario=4, tree=2) mesh across processes — tree collectives stay
-    process-local, the scenario axis spans >1 DCN-analog hop (VERDICT r2
-    item 7). The SPMD program is process-count-invariant, so the costs must
+    process-local, the scenario axis spans >1 cross-host-analog hop. The
+    SPMD program is process-count-invariant, so the costs must
     equal an in-process 8-device run of the same program bit-for-bit."""
     import re
     import tempfile
 
     import numpy as np
 
-    from cudasbmp_tpu.config import KGMTConfig, Scenario
-    from cudasbmp_tpu.parallel.mesh import make_planner_mesh
-    from cudasbmp_tpu.parallel.sharded_multi_query import (
+    from cudasbmp_jax.config import KGMTConfig, Scenario
+    from cudasbmp_jax.parallel.mesh import make_planner_mesh
+    from cudasbmp_jax.parallel.sharded_multi_query import (
         ShardedMultiQueryPlanner,
     )
 

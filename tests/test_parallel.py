@@ -1,5 +1,5 @@
 """Distributed-mode tests on the 8-virtual-device CPU mesh (SURVEY.md §4.4:
-the TPU-native answer to 'fake backends').
+the answer to 'fake backends').
 
 Covers BASELINE.json configs 4 (multi-query batch sharded over one host) and
 the sharded-tree mode with psum'd region statistics, plus Monte-Carlo scenario
@@ -9,12 +9,12 @@ import jax
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.parallel.mesh import device_count, make_planner_mesh
-from cudasbmp_tpu.parallel.monte_carlo import MonteCarloPlanner, random_scenarios
-from cudasbmp_tpu.parallel.multi_query import MultiQueryPlanner
-from cudasbmp_tpu.parallel.sharded_tree import ShardedTreePlanner
-from cudasbmp_tpu.geometry.aabb import point_in_any_obstacle
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.parallel.mesh import device_count, make_planner_mesh
+from cudasbmp_jax.parallel.monte_carlo import MonteCarloPlanner, random_scenarios
+from cudasbmp_jax.parallel.multi_query import MultiQueryPlanner
+from cudasbmp_jax.parallel.sharded_tree import ShardedTreePlanner
+from cudasbmp_jax.geometry.aabb import point_in_any_obstacle
 
 
 MQ_CONFIG = KGMTConfig(
@@ -156,7 +156,7 @@ def test_sharded_tree_path_crosses_shards():
 
 @pytest.mark.slow
 def test_sharded_tree_sterile_shard_rescued_by_exchange():
-    """Forced-sterile-shard witness (SURVEY.md P7 / VERDICT r1 item 1): one
+    """Forced-sterile-shard witness (SURVEY.md P7): one
     shard's root is seeded INSIDE an obstacle, so every rollout from its own
     frontier is invalid forever. Without frontier exchange that shard's tree
     is stuck at size 1; with the exchange it imports foreign frontier nodes
@@ -263,7 +263,7 @@ def test_sharded_multi_query_batch_of_sharded_trees():
     each problem one collective sharded tree over the tree axis (psum'd
     guidance + frontier exchange inside each problem, nothing between
     problems). 4 problems x 2-shard trees on the 8-device mesh."""
-    from cudasbmp_tpu.parallel.sharded_multi_query import (
+    from cudasbmp_jax.parallel.sharded_multi_query import (
         ShardedMultiQueryPlanner,
     )
 
@@ -299,7 +299,7 @@ def test_sharded_multi_query_batch_of_sharded_trees():
 
 @pytest.mark.slow
 def test_sharded_multi_query_deterministic():
-    from cudasbmp_tpu.parallel.sharded_multi_query import (
+    from cudasbmp_jax.parallel.sharded_multi_query import (
         ShardedMultiQueryPlanner,
     )
 

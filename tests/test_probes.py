@@ -3,9 +3,9 @@ the reference's only 'benchmark harness', SURVEY.md §3.3)."""
 
 import numpy as np
 
-from cudasbmp_tpu.config import KGMTConfig, Scenario
-from cudasbmp_tpu.planners.costprop import CostPropPlanner
-from cudasbmp_tpu.planners.naive import NaivePlanner
+from cudasbmp_jax.config import KGMTConfig, Scenario
+from cudasbmp_jax.planners.costprop import CostPropPlanner
+from cudasbmp_jax.planners.naive import NaivePlanner
 
 
 def test_naive_tree_shape_and_ranges(demo_scenario):

@@ -4,9 +4,9 @@ hard-valid and should not be worse than the input."""
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import Scenario
-from cudasbmp_tpu.planners.kgmt import KGMT
-from cudasbmp_tpu.refine import RefineConfig, refine_path
+from cudasbmp_jax.config import Scenario
+from cudasbmp_jax.planners.kgmt import KGMT
+from cudasbmp_jax.refine import RefineConfig, refine_path
 
 
 @pytest.mark.slow
@@ -41,12 +41,12 @@ def test_refine_rejects_too_short_path(small_config, demo_scenario):
 
 @pytest.mark.slow
 def test_refine_batch_multi_query(small_config):
-    """Whole-batch refinement (VERDICT r3 item 4): one jitted program refines
+    """Whole-batch refinement: one jitted program refines
     a multi-query batch; every refined path must pass hard re-validation and
     never report a cost above its input."""
-    from cudasbmp_tpu.parallel.multi_query import MultiQueryPlanner
-    from cudasbmp_tpu.refine import refine_batch
-    from cudasbmp_tpu.systems.registry import get_system
+    from cudasbmp_jax.parallel.multi_query import MultiQueryPlanner
+    from cudasbmp_jax.refine import refine_batch
+    from cudasbmp_jax.systems.registry import get_system
 
     cfg = small_config
     sc = Scenario.demo()
@@ -71,7 +71,7 @@ def test_refine_batch_multi_query(small_config):
     # at least one problem in an easy batch should actually improve
     assert imp.any(), "refinement should improve at least one demo path"
     # per-problem parity with the single-path API on problem 0
-    from cudasbmp_tpu.refine import refine_path
+    from cudasbmp_jax.refine import refine_path
 
     L0 = int(res.path_lengths[0])
     single = refine_path(
@@ -87,9 +87,9 @@ def test_refine_batch_multi_query(small_config):
 def test_refine_batch_skips_unsolved_rows():
     """Rows with path_length < 2 (unsolved) must come back valid=False,
     improved=False and leave their controls untouched."""
-    from cudasbmp_tpu.refine import refine_batch
-    from cudasbmp_tpu.systems.registry import get_system
-    from cudasbmp_tpu.config import KGMTConfig
+    from cudasbmp_jax.refine import refine_batch
+    from cudasbmp_jax.systems.registry import get_system
+    from cudasbmp_jax.config import KGMTConfig
 
     cfg = KGMTConfig()
     sc = Scenario.demo()

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cudasbmp_tpu.ops.rollout import propagate_and_check, rollout_batch
-from cudasbmp_tpu.systems import KinematicBicycle
+from cudasbmp_jax.ops.rollout import propagate_and_check, rollout_batch
+from cudasbmp_jax.systems import KinematicBicycle
 
 
 def reference_propagate_and_check(x0, a, steering, duration, num_disc,

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import Scenario
-from cudasbmp_tpu.ops.rollout import rollout_batch
-from cudasbmp_tpu.planners.kgmt import KGMT
-from cudasbmp_tpu.shortcut import ShortcutConfig, shortcut_path
+from cudasbmp_jax.config import Scenario
+from cudasbmp_jax.ops.rollout import rollout_batch
+from cudasbmp_jax.planners.kgmt import KGMT
+from cudasbmp_jax.shortcut import ShortcutConfig, shortcut_path
 
 
 @pytest.mark.slow
@@ -69,8 +69,8 @@ def test_shortcut_batch_multi_query(small_config, demo_scenario):
     program; every solved row's cost must not increase and its new path
     must replay collision-free into the goal region. Unsolved rows pass
     through untouched."""
-    from cudasbmp_tpu.parallel.batch_kgmt import ArenaMultiQueryPlanner
-    from cudasbmp_tpu.shortcut import shortcut_batch
+    from cudasbmp_jax.parallel.batch_kgmt import ArenaMultiQueryPlanner
+    from cudasbmp_jax.shortcut import shortcut_batch
 
     cfg = small_config.replace(rollouts_per_iter=128, num_iterations=60,
                                adaptive_waves=False)

@@ -5,10 +5,10 @@ import jax
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.config import KGMTConfig
-from cudasbmp_tpu.parallel.streaming_mc import StreamingMonteCarloPlanner
+from cudasbmp_jax.config import KGMTConfig
+from cudasbmp_jax.parallel.streaming_mc import StreamingMonteCarloPlanner
 
-# small shapes keep the CPU suite quick; jnp backend (no TPU kernel)
+# small shapes keep the CPU suite quick; jnp backend (no GPU kernel)
 CFG = KGMTConfig(rollouts_per_iter=256, num_iterations=40,
                  rollout_backend="jnp", adaptive_waves=False,
                  max_tree_size=2)  # unused by the streaming planner
@@ -55,7 +55,7 @@ def test_stream_pool_smaller_equal_larger():
 
 
 def test_partitioned_pools_reproduce_single_pool():
-    """VERDICT r4 item 5: N pools over disjoint scenario-id ranges
+    """N pools over disjoint scenario-id ranges
     (run(id_lo=...)) reproduce the unpartitioned sweep bit-for-bit — the
     deployment model for multi-chip streaming sweeps."""
     single = StreamingMonteCarloPlanner(CFG, pool=4).run(
@@ -101,7 +101,7 @@ def test_stream_matches_static_arena_quality():
     """Same scenario-generation recipe as the static Monte-Carlo sweep: the
     streaming planner's solve rate on an easy randomized set should be in
     the same band as MonteCarloPlanner(impl='arena')."""
-    from cudasbmp_tpu.parallel.monte_carlo import MonteCarloPlanner
+    from cudasbmp_jax.parallel.monte_carlo import MonteCarloPlanner
 
     stream = StreamingMonteCarloPlanner(CFG, pool=8).run(
         num_scenarios=8, seed=5, num_obstacles=5)

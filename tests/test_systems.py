@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cudasbmp_tpu.systems import (
+from cudasbmp_jax.systems import (
     DoubleIntegrator2D,
     DubinsCar,
     KinematicBicycle,
