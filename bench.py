@@ -78,18 +78,15 @@ def _field(dense: bool):
 
 
 def _rollout_fn(backend: str, system, obstacles, fast_math: bool = False,
-                block: int | None = None, num_warps: int | None = None,
                 footprint=None):
     """(x0, controls) -> (x1, valid) for one rollout implementation."""
     from cudasbmp_jax.ops.rollout import rollout_batch
     from cudasbmp_jax.ops.rollout_pallas import rollout_pallas
 
     if backend == "pallas":
-        kw = {k: v for k, v in (("block", block), ("num_warps", num_warps))
-              if v is not None}
         return lambda x0, c: rollout_pallas(
             system, x0, c, obstacles, num_disc=NUM_DISC, width=20.0,
-            height=20.0, fast_math=fast_math, footprint=footprint, **kw)
+            height=20.0, fast_math=fast_math, footprint=footprint)
     return lambda x0, c: rollout_batch(system, x0, c, NUM_DISC, obstacles,
                                        20.0, 20.0, footprint=footprint)
 
@@ -149,20 +146,16 @@ def measure_prop_throughput(batch: int = BATCH, repeats: int = REPEATS,
 def measure_rollout_ab(batches=(4096, 1 << 17)) -> dict:
     """The fused kernel against XLA's rollout, per call: B lanes x K boxes
     (demo K=5, dense K=24, and dense with the oriented footprint), each
-    variant timed as n calls inside one dispatch. Variants: the jnp scan and
-    the kernel at several (lanes per program, warps) shapes. Parity columns, from the last call: share of
-    lanes whose valid flag differs from the jnp scan, and the largest |x1|
-    difference among lanes valid in both."""
+    timed as n calls inside one dispatch. Parity columns, from the last
+    call: share of lanes whose valid flag differs from the jnp scan, and the
+    largest |x1| difference among lanes valid in both."""
     import jax
     import jax.numpy as jnp
 
     from cudasbmp_jax.systems.registry import get_system
 
     system = get_system("bicycle")
-    kernels = [(f"pallas_b{b}_w{w}", {"backend": "pallas", "block": b,
-                                      "num_warps": w})
-               for b, w in ((32, 1), (128, 4), (512, 4))]
-    variants = [("jnp", {})] + kernels
+    variants = (("jnp", "jnp"), ("pallas", "pallas"))
     fields = (("K5", False, None), ("K24", True, None),
               ("K24_footprint", True, (0.5, 0.25)))
     out = {}
@@ -174,10 +167,9 @@ def measure_rollout_ab(batches=(4096, 1 << 17)) -> dict:
             obstacles = jnp.asarray(_field(dense).obstacles)
             ref = None
             cell = {}
-            for name, kw in variants:
-                kw = dict(kw, footprint=footprint)
-                roll = _rollout_fn(kw.pop("backend", "jnp"), system,
-                                   obstacles, **kw)
+            for name, backend in variants:
+                roll = _rollout_fn(backend, system, obstacles,
+                                   footprint=footprint)
 
                 @jax.jit
                 def many(x0, c, roll=roll):
@@ -340,27 +332,21 @@ def measure_multi_query(batch: int = 256,
 def measure_permute_ab(batch: int = 256, rollouts_per_iter: int = 128,
                        rounds: int = 3) -> dict:
     """The arena's one-hot permutation matmuls against stable argsort +
-    take_along_axis at R=128 (``_PERMUTE_MATMUL_MAX_R`` picks between
-    them): solve wall time of each, in alternating turns, and whether the
-    results are bitwise equal."""
-    import cudasbmp_jax.parallel.batch_kgmt as bk
+    take_along_axis at R=128 (``one_hot_permute`` picks between them):
+    solve wall time of each, in alternating turns, and whether the results
+    are bitwise equal."""
     from cudasbmp_jax.config import KGMTConfig
+    from cudasbmp_jax.parallel.batch_kgmt import ArenaMultiQueryPlanner
 
     cfg = KGMTConfig(rollouts_per_iter=rollouts_per_iter, num_iterations=150,
                      adaptive_waves=False)
     inits, goals, obstacles = _demo_batch(batch, cfg.max_obstacles)
-    saved = bk._PERMUTE_MATMUL_MAX_R
     planners = {}
-    try:
-        for name, thr in (("onehot", rollouts_per_iter), ("argsort", 0)):
-            # the threshold is read while the solve is traced, so each
-            # planner compiles its own arm
-            bk._PERMUTE_MATMUL_MAX_R = thr
-            p = bk.ArenaMultiQueryPlanner(cfg, auto_capacity=True)
-            p.plan_batch(inits, goals, obstacles, seed=3)
-            planners[name] = p
-    finally:
-        bk._PERMUTE_MATMUL_MAX_R = saved
+    for name, one_hot in (("onehot", True), ("argsort", False)):
+        p = ArenaMultiQueryPlanner(cfg, auto_capacity=True,
+                                   one_hot_permute=one_hot)
+        p.plan_batch(inits, goals, obstacles, seed=3)
+        planners[name] = p
     walls = {name: [] for name in planners}
     results = {}
     for r in range(rounds):
@@ -390,8 +376,10 @@ def measure_monte_carlo(batch: int = 1024, num_obstacles: int = 8) -> dict:
     cfg = KGMTConfig(rollouts_per_iter=128, num_iterations=150,
                      adaptive_waves=False)
     mc = MonteCarloPlanner(cfg, impl="arena", auto_capacity=True)
+    # the restarts build sub-planners whose shapes depend on how many
+    # scenarios exhaust their budget, so the warm-up is the timed call itself
     t0 = time.perf_counter()
-    mc.run(batch, seed=0, num_obstacles=num_obstacles)
+    mc.run(batch, seed=1, num_obstacles=num_obstacles, max_extensions=2)
     compile_s = time.perf_counter() - t0
     s = mc.run(batch, seed=1, num_obstacles=num_obstacles, max_extensions=2)
     return {

@@ -226,30 +226,25 @@ def _assert_same_batch(a, b, what: str) -> None:
 def phase_arena(car) -> None:
     """ArenaMultiQueryPlanner.plan_batch: 256 queries at R=128, and the
     one-hot permutation arm against argsort + gather, bitwise."""
-    import cudasbmp_jax.parallel.batch_kgmt as bk
+    from cudasbmp_jax.parallel.batch_kgmt import ArenaMultiQueryPlanner
     from cudasbmp_jax.systems.registry import get_system
 
     cfg = _arena_cfg(car)
     inits, goals, obstacles = _arena_batch(256, cfg.max_obstacles)
     results = {}
-    saved = bk._PERMUTE_MATMUL_MAX_R
-    try:
-        for arm, thr in (("argsort", 0), ("onehot", cfg.rollouts_per_iter)):
-            # read while the solve is traced: each planner compiles its arm
-            bk._PERMUTE_MATMUL_MAX_R = thr
-            planner = bk.ArenaMultiQueryPlanner(cfg, auto_capacity=True)
-            t0 = time.perf_counter()
-            planner.plan_batch(inits, goals, obstacles, seed=1)
-            first = time.perf_counter() - t0
-            res = planner.plan_batch(inits, goals, obstacles, seed=2)
-            results[arm] = res
-            log(f"arena {arm} B=256 R=128: solve rate "
-                f"{res.solved.mean():.4f}, cost p10/p50/p90 "
-                f"{np.quantile(res.costs[res.solved], [.1, .5, .9]).round(3).tolist()}, "
-                f"compile+first {first:.2f} s, steady {res.wall_time_s:.4f} s"
-                f" ({res.solves_per_sec:.1f} solves/s)")
-    finally:
-        bk._PERMUTE_MATMUL_MAX_R = saved
+    for arm, one_hot in (("argsort", False), ("onehot", True)):
+        planner = ArenaMultiQueryPlanner(cfg, auto_capacity=True,
+                                         one_hot_permute=one_hot)
+        t0 = time.perf_counter()
+        planner.plan_batch(inits, goals, obstacles, seed=1)
+        first = time.perf_counter() - t0
+        res = planner.plan_batch(inits, goals, obstacles, seed=2)
+        results[arm] = res
+        q = np.quantile(res.costs[res.solved], [.1, .5, .9])
+        log(f"arena {arm} B=256 R=128: solve rate {res.solved.mean():.4f}, "
+            f"cost p10/p50/p90 {q.round(3).tolist()}, compile+first "
+            f"{first:.2f} s, steady {res.wall_time_s:.4f} s "
+            f"({res.solves_per_sec:.1f} solves/s)")
     res = results["argsort"]
     check(res.solved.mean() >= 0.9, f"arena solve rate {res.solved.mean()}")
     _assert_same_batch(results["onehot"], res, "one-hot vs argsort")

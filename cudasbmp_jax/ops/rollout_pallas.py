@@ -9,7 +9,7 @@ obstacle set read once per program as scalars. XLA lowers the plain
 broadcast tests) as a device loop of several kernels per step; here the
 whole rollout is one launch.
 
-Layout: each program owns ``block`` consecutive lanes of the caller's
+Layout: each program owns ``BLOCK`` consecutive lanes of the caller's
 ``[B, state_dim]`` / ``[B, control_dim]`` arrays and reads them with masked
 strided loads (the reference's array-of-structs layout), so the wrapper adds
 no transpose, pad or slice around the call.
@@ -30,7 +30,8 @@ from jax.experimental.pallas import triton as plgpu
 
 from cudasbmp_jax.utils.vma import pvary_like, vma_of
 
-# Lanes per program and warps per program: one lane per thread.
+# Lanes per program and warps per program: one lane per thread. BLOCK must
+# be a power of two (Triton's block shapes).
 BLOCK = 128
 NUM_WARPS = 4
 
@@ -133,12 +134,12 @@ def _integrate(system, comps, ctrl, dur, obs_ref, num_disc: int,
 
 def _rollout_kernel(x0_ref, ctrl_ref, obs_ref, x1_ref, valid_ref, *, system,
                     num_disc: int, width: float, height: float, footprint,
-                    fast_math: bool, block: int):
+                    fast_math: bool):
     n_lanes, S = x0_ref.shape
     C = ctrl_ref.shape[1]
-    start = pl.program_id(0) * block
-    lanes = pl.ds(start, block)
-    mask = start + jnp.arange(block, dtype=jnp.int32) < n_lanes
+    start = pl.program_id(0) * BLOCK
+    lanes = pl.ds(start, BLOCK)
+    mask = start + jnp.arange(BLOCK, dtype=jnp.int32) < n_lanes
     comps = [plgpu.load(x0_ref.at[lanes, j], mask=mask, other=0.0)
              for j in range(S)]
     ctrl = [plgpu.load(ctrl_ref.at[lanes, j], mask=mask, other=0.0)
@@ -153,7 +154,7 @@ def _rollout_kernel(x0_ref, ctrl_ref, obs_ref, x1_ref, valid_ref, *, system,
 @functools.partial(
     jax.jit,
     static_argnames=("system", "num_disc", "width", "height", "interpret",
-                     "footprint", "fast_math", "block", "num_warps"),
+                     "footprint", "fast_math"),
 )
 def rollout_pallas(
     system,
@@ -167,18 +168,14 @@ def rollout_pallas(
     interpret: bool = False,
     footprint: tuple[float, float] | None = None,
     fast_math: bool = False,
-    block: int = BLOCK,
-    num_warps: int = NUM_WARPS,
 ) -> tuple[jax.Array, jax.Array]:
     """Fused rollout for any SoA-capable system. Same contract as
     ops.rollout.rollout_batch (including the optional oriented-footprint
     narrow phase): returns (x1 [B, state_dim], valid [B]).
 
     ``interpret=True`` runs the kernel in the Pallas interpreter (tests on
-    a machine without a GPU). ``block`` must be a power of two."""
+    a machine without a GPU)."""
     B, S = x0.shape
-    if block & (block - 1):
-        raise ValueError(f"block={block} is not a power of two")
     if obstacles.shape[0] == 0:
         # one degenerate box (max < min) keeps the kernel's operand non-empty
         obstacles = jnp.array([[1.0, 1.0, 0.0, 0.0]], jnp.float32)
@@ -191,14 +188,14 @@ def rollout_pallas(
     vma = vma_of(operands[0])
     kernel = functools.partial(
         _rollout_kernel, system=system, num_disc=num_disc, width=width,
-        height=height, footprint=footprint, fast_math=fast_math, block=block)
+        height=height, footprint=footprint, fast_math=fast_math)
     x1, valid = pl.pallas_call(
         kernel,
-        grid=(pl.cdiv(B, block),),
+        grid=(pl.cdiv(B, BLOCK),),
         out_shape=(jax.ShapeDtypeStruct((B, S), jnp.float32, vma=vma),
                    jax.ShapeDtypeStruct((B,), jnp.int32, vma=vma)),
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                              num_stages=1),
         interpret=interpret,
         name="rollout_pallas",

@@ -20,11 +20,11 @@ The arena removes the divergence by construction:
   per-rollout score/virgin-cell lookups ride the same one-hots.
 - The frontier is carried COMPACTED in registers ([B, R] parent rows,
   costs, ids), refreshed each iteration from the wave's accepted children —
-  no tree gather at all. For R <= _PERMUTE_MATMUL_MAX_R both the refresh
-  compaction and the round-robin parent pick can be ONE-HOT PERMUTATION
-  MATMULS (cumsum -> destination slot -> one-hot -> einsum), bitwise
-  identical to the stable-argsort + take_along_axis form the GPU takes
-  (see _PERMUTE_MATMUL_MAX_R).
+  no tree gather at all. The refresh compaction and the round-robin parent
+  pick are stable argsort + take_along_axis; ``one_hot_permute=True``
+  applies both as ONE-HOT PERMUTATION MATMULS instead (cumsum ->
+  destination slot -> one-hot -> einsum), bitwise identical (see
+  _permute_rows).
 
 Search-semantics relation to the flagship (planners/kgmt.py): the arena is
 the fixed-wave-width mode (``adaptive_waves=False`` equivalent): every
@@ -59,18 +59,15 @@ from cudasbmp_jax.systems.registry import get_system
 
 Array = jax.Array
 
-# Row-permutation strategy for the per-iteration parent gather + frontier
-# compaction. For R <= _PERMUTE_MATMUL_MAX_R both permutations are one-hot
-# matmuls (B*R^2*(S+2) multiply-adds), BITWISE identical to the stable
-# argsort + take_along_axis form: a permutation one-hot selects exactly one
-# f32 term per output (sum of zeros + x = x exactly), and index columns
-# stay below 2^24 so their f32 round trip is exact. The one-hot arm paid
-# off on an accelerator that serialised gathers; on the H100 argsort +
-# gather won every turn at the arena's R=128 (PERF.md), so the threshold
-# is 0 and every width takes the argsort arm.
-_PERMUTE_MATMUL_MAX_R = 0
-
-
+# Row-permutation arms for the per-iteration parent gather + frontier
+# compaction. With one_hot_permute both permutations are one-hot matmuls
+# (B*R^2*(S+2) multiply-adds), BITWISE identical to the stable argsort +
+# take_along_axis form: a permutation one-hot selects exactly one f32 term
+# per output (sum of zeros + x = x exactly), and index columns stay below
+# 2^24 so their f32 round trip is exact. The one-hot arm paid off on an
+# accelerator that serialised gathers; on the H100 argsort + gather won
+# every turn at the arena's R=128 (PERF.md), so it is the default. The
+# one-hot arm stays for the wider A/B (ROADMAP S4).
 def _permute_rows(perm: Array, cols: Array) -> Array:
     """Apply a row permutation as a one-hot contraction: out[b, r] =
     cols[b, perm[b, r]]. perm [B, R] int32 with each row a permutation (or
@@ -222,17 +219,15 @@ def arena_init(cfg: KGMTConfig, grid: RegionGrid, inits: Array,
 
 def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
                     obstacles: Array, goals: Array, R: int,
-                    s: ArenaState) -> ArenaState:
+                    s: ArenaState, one_hot_permute: bool = False
+                    ) -> ArenaState:
     """One global iteration over the whole batch: score -> expand -> stats ->
     accept -> window commit -> goal -> frontier refresh. All offsets are
     batch-uniform; there is no scatter and no per-problem gather from HBM
     trees anywhere in this body."""
     B = s.done.shape[0]
     nr1, n2 = cfg.num_r1, cfg.n * cfg.n
-    M = s.tree_parent.shape[1]
     S = s.p_x0.shape[-1]
-    # matmul permutations need tree-slot ids to survive an f32 round trip
-    use_matmul_perm = R <= _PERMUTE_MATMUL_MAX_R and M < (1 << 24)
     r1_score = _scores(cfg, s)
 
     # --- parent assignment: round-robin over the compacted frontier carry --
@@ -258,7 +253,7 @@ def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
                 biased = jnp.where(ok, near[:, idx].astype(jnp.int32),
                                    j[:, :n_biased])
                 j = jnp.concatenate([biased, j[:, n_biased:]], axis=1)
-        if use_matmul_perm:
+        if one_hot_permute:
             cols = jnp.concatenate(
                 [s.p_x0, s.p_cost[:, :, None],
                  s.p_gid.astype(jnp.float32)[:, :, None]], axis=-1)
@@ -356,7 +351,7 @@ def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
     # --- frontier refresh: accepted children, compacted by stable argsort --
     with jax.named_scope("arena_frontier"):
         n_acc = accept.sum(axis=-1, dtype=jnp.int32)
-        if use_matmul_perm:
+        if one_hot_permute:
             # destination slot per wave element: accepted keep arrival order
             # at the front, rejected pile behind — the exact permutation
             # stable argsort(~accept) produces, built from two cumsums and
@@ -417,9 +412,11 @@ def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
 
 def arena_solve(cfg: KGMTConfig, system, grid: RegionGrid, inits: Array,
                 goals: Array, obstacles: Array, key: Array,
-                M: int, R: int, n_windows: int) -> ArenaState:
+                M: int, R: int, n_windows: int,
+                one_hot_permute: bool = False) -> ArenaState:
     s0 = arena_init(cfg, grid, inits, key, M, R, system.state_dim)
-    body = partial(arena_iteration, cfg, system, grid, obstacles, goals, R)
+    body = partial(arena_iteration, cfg, system, grid, obstacles, goals, R,
+                   one_hot_permute=one_hot_permute)
     return jax.lax.while_loop(
         lambda s: (s.it < n_windows) & jnp.any(~s.done), body, s0)
 
@@ -452,15 +449,18 @@ class ArenaMultiQueryPlanner:
     MultiQueryPlanner where fixed-wave semantics suffice; see module
     docstring for the semantics delta). ``mesh`` shards the problem axis
     (BASELINE config 4) — the arena exchanges nothing between problems, so
-    sharding is pure data parallelism."""
+    sharding is pure data parallelism. ``one_hot_permute`` selects the
+    one-hot permutation arm (bitwise equal to the default argsort arm; kept
+    for comparing the two)."""
 
     def __init__(self, config: KGMTConfig | None = None,
                  mesh: Mesh | None = None, system=None,
-                 auto_capacity: bool = False):
+                 auto_capacity: bool = False, one_hot_permute: bool = False):
         cfg = self.config = config or KGMTConfig()
         self.mesh = mesh
         self.system = system or get_system(cfg.system)
         self.auto_capacity = auto_capacity
+        self.one_hot_permute = one_hot_permute
         grid = RegionGrid(width=cfg.width, height=cfg.height, N=cfg.N,
                           n=cfg.n)
         R = cfg.rollouts_per_iter
@@ -475,6 +475,10 @@ class ArenaMultiQueryPlanner:
             # window layout: slot block w holds iteration w's wave (block 0 =
             # root), so capacity bounds iterations
             M = max(cfg.max_tree_size // R, 2) * R
+        if one_hot_permute and M >= 1 << 24:
+            # tree-slot ids ride the one-hot matmul as f32 values
+            raise ValueError(f"one_hot_permute needs max_tree_size < 2^24, "
+                             f"got {M}")
         self.n_windows = min(cfg.num_iterations, M // R - 1)
         self._extensions: dict[int, "ArenaMultiQueryPlanner"] = {}
         self.M, self.R = M, R
@@ -483,7 +487,7 @@ class ArenaMultiQueryPlanner:
 
         def _solve(inits, goals, obstacles, key):
             final = arena_solve(cfg, sys_, grid, inits, goals, obstacles,
-                                key, M, R, n_win)
+                                key, M, R, n_win, one_hot_permute)
             nodes, samples, lengths = arena_extract_paths(final, n_win + 1)
             iters = jnp.where(final.solved_at >= 0, final.solved_at,
                               final.it)
@@ -596,9 +600,10 @@ class ArenaMultiQueryPlanner:
             if sub is None:
                 cfg2 = dataclasses.replace(self.config,
                                            num_iterations=windows)
-                sub = ArenaMultiQueryPlanner(cfg2, mesh=self.mesh,
-                                             system=self.system,
-                                             auto_capacity=True)
+                sub = ArenaMultiQueryPlanner(
+                    cfg2, mesh=self.mesh, system=self.system,
+                    auto_capacity=True,
+                    one_hot_permute=self.one_hot_permute)
                 self._extensions[windows] = sub
             # pad the subset to a power-of-two bucket (and a MULTIPLE of the
             # mesh's scenario axis — max() alone breaks for

@@ -30,8 +30,8 @@ as parallel.monte_carlo.random_scenarios, keyed by fold_in(key, scenario_id)
 so scenario i is identical regardless of which slot or iteration picks it
 up). Search semantics per scenario match the fixed-wave arena: round-robin
 parents over the compacted frontier, reference acceptance/guidance/goal
-rules (KGMT.cu:394-400, 487-538, 635-638), frontier refresh by the arena's
-permutation arm (batch_kgmt._PERMUTE_MATMUL_MAX_R; both arms bitwise equal).
+rules (KGMT.cu:394-400, 487-538, 635-638), frontier refresh by stable
+argsort + gather (the arena's default permutation arm).
 """
 
 from __future__ import annotations
@@ -50,8 +50,6 @@ from cudasbmp_jax.config import KGMTConfig
 from cudasbmp_jax.geometry.aabb import point_in_any_obstacle
 from cudasbmp_jax.geometry.grid import RegionGrid
 from cudasbmp_jax.parallel.batch_kgmt import (
-    _PERMUTE_MATMUL_MAX_R,
-    _permute_rows,
     _region_local,
     _rollout_wave,
 )
@@ -201,13 +199,8 @@ def stream_iteration(cfg: KGMTConfig, system, grid: RegionGrid, R: int,
     with jax.named_scope("stream_parents"):
         j = (jnp.arange(R, dtype=jnp.int32)[None, :]
              % jnp.maximum(s.n_parents, 1)[:, None])
-        if R <= _PERMUTE_MATMUL_MAX_R:
-            cols = jnp.concatenate([s.p_x0, s.p_cost[:, :, None]], axis=-1)
-            picked = _permute_rows(j, cols)
-            x0, pcost = picked[..., :S], picked[..., S]
-        else:
-            x0 = jnp.take_along_axis(s.p_x0, j[:, :, None], axis=1)
-            pcost = jnp.take_along_axis(s.p_cost, j, axis=1)
+        x0 = jnp.take_along_axis(s.p_x0, j[:, :, None], axis=1)
+        pcost = jnp.take_along_axis(s.p_cost, j, axis=1)
 
     # --- expansion (vmapped per-slot obstacle sets) -----------------------
     with jax.named_scope("stream_expand"):
@@ -271,26 +264,13 @@ def stream_iteration(cfg: KGMTConfig, system, grid: RegionGrid, R: int,
         best_cost = goal_costs.min(axis=-1)
         cost_to_goal = jnp.minimum(s.cost_to_goal, best_cost)
 
-    # --- frontier refresh (the arena's permutation arms) ---------------------
+    # --- frontier refresh: accepted children, compacted by stable argsort --
     with jax.named_scope("stream_frontier"):
         n_acc = accept.sum(axis=-1, dtype=jnp.int32)
-        if R <= _PERMUTE_MATMUL_MAX_R:
-            dst = jnp.where(
-                accept, jnp.cumsum(accept, axis=-1, dtype=jnp.int32) - 1,
-                n_acc[:, None]
-                + jnp.cumsum(~accept, axis=-1, dtype=jnp.int32) - 1)
-            onehot = (dst[:, :, None]
-                      == jnp.arange(R, dtype=jnp.int32)[None, None, :])
-            cols = jnp.concatenate([x1, child_cost[:, :, None]], axis=-1)
-            out = jnp.einsum("bir,bid->brd", onehot.astype(jnp.float32),
-                             cols, preferred_element_type=jnp.float32,
-                             precision=jax.lax.Precision.HIGHEST)
-            new_x0, new_cost = out[..., :S], out[..., S]
-        else:
-            order = jnp.argsort(jnp.where(accept, 0, 1), axis=-1,
-                                stable=True).astype(jnp.int32)
-            new_x0 = jnp.take_along_axis(x1, order[:, :, None], axis=1)
-            new_cost = jnp.take_along_axis(child_cost, order, axis=1)
+        order = jnp.argsort(jnp.where(accept, 0, 1), axis=-1,
+                            stable=True).astype(jnp.int32)
+        new_x0 = jnp.take_along_axis(x1, order[:, :, None], axis=1)
+        new_cost = jnp.take_along_axis(child_cost, order, axis=1)
         keep = (n_acc > 0) & live  # stall -> retry same frontier
         kb = keep[:, None]
         p_x0 = jnp.where(kb[..., None], new_x0, s.p_x0)

@@ -217,21 +217,17 @@ def test_arena_monte_carlo_sweep():
     assert np.isfinite(s.costs[s.solved]).all()
 
 
-def test_arena_permutation_paths_bitwise_equal(monkeypatch):
-    """The one-hot permutation path (R <= _PERMUTE_MATMUL_MAX_R) must be
-    BITWISE identical to the argsort + take_along_axis path: a permutation
-    one-hot selects exactly one f32 term per output and index columns stay
-    below 2^24, so no float rounding can differ."""
-    import cudasbmp_jax.parallel.batch_kgmt as bk
-
+def test_arena_permutation_paths_bitwise_equal():
+    """The one-hot permutation arm (one_hot_permute=True) must be BITWISE
+    identical to the argsort + take_along_axis arm: a permutation one-hot
+    selects exactly one f32 term per output and index columns stay below
+    2^24, so no float rounding can differ."""
     cfg = KGMTConfig(rollouts_per_iter=128, max_tree_size=128 * 101,
                      num_iterations=100, rollout_backend="jnp")
     B = 4
     inits, goals, obstacles = _demo_batch(B, vary_goals=True)
-    monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", cfg.rollouts_per_iter)
-    res_onehot = ArenaMultiQueryPlanner(cfg).plan_batch(
+    res_onehot = ArenaMultiQueryPlanner(cfg, one_hot_permute=True).plan_batch(
         inits, goals, obstacles, seed=5)
-    monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", 0)
     res_gather = ArenaMultiQueryPlanner(cfg).plan_batch(
         inits, goals, obstacles, seed=5)
     assert res_onehot.solved.any()  # non-degenerate comparison
@@ -242,20 +238,16 @@ def test_arena_permutation_paths_bitwise_equal(monkeypatch):
     np.testing.assert_array_equal(res_onehot.tree_sizes, res_gather.tree_sizes)
 
 
-def test_arena_permutation_parity_with_goal_bias(monkeypatch):
+def test_arena_permutation_parity_with_goal_bias():
     """Same bitwise parity through the goal-bias top-k parent assignment
     (j is an arbitrary index map there, not just round-robin)."""
-    import cudasbmp_jax.parallel.batch_kgmt as bk
-
     cfg = KGMTConfig(rollouts_per_iter=128, max_tree_size=128 * 101,
                      num_iterations=100, rollout_backend="jnp",
                      goal_bias=0.25, goal_bias_k=8)
     B = 2
     inits, goals, obstacles = _demo_batch(B)
-    monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", cfg.rollouts_per_iter)
-    res_onehot = ArenaMultiQueryPlanner(cfg).plan_batch(
+    res_onehot = ArenaMultiQueryPlanner(cfg, one_hot_permute=True).plan_batch(
         inits, goals, obstacles, seed=7)
-    monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", 0)
     res_gather = ArenaMultiQueryPlanner(cfg).plan_batch(
         inits, goals, obstacles, seed=7)
     np.testing.assert_array_equal(res_onehot.solved, res_gather.solved)
@@ -309,3 +301,12 @@ def test_arena_progressive_extension_solves():
             L = int(ext.path_lengths[b])
             assert L >= 2
             assert _replay_path(ext.paths[b][:L], cfg.num_disc) < 1e-4
+
+
+def test_arena_one_hot_permute_rejects_f32_inexact_slot_ids():
+    """Tree-slot ids ride the one-hot permutation as f32 values, exact only
+    below 2^24: a larger tree must be refused, not silently corrupted."""
+    cfg = ARENA_CONFIG.replace(max_tree_size=1 << 24)
+    with pytest.raises(ValueError, match="2\\^24"):
+        ArenaMultiQueryPlanner(cfg, one_hot_permute=True)
+    assert ArenaMultiQueryPlanner(cfg).M == 1 << 24

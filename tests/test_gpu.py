@@ -51,8 +51,8 @@ def test_pathless_matches_tree_mode_on_gpu(gpu):
         tree.solved, tree.cost, tree.iterations)
 
 
-def test_arena_permutation_arms_equal_on_gpu(gpu, monkeypatch):
-    import cudasbmp_jax.parallel.batch_kgmt as bk
+def test_arena_permutation_arms_equal_on_gpu(gpu):
+    from cudasbmp_jax.parallel.batch_kgmt import ArenaMultiQueryPlanner
 
     cfg = KGMTConfig(rollouts_per_iter=128, num_iterations=100,
                      adaptive_waves=False)
@@ -62,9 +62,9 @@ def test_arena_permutation_arms_equal_on_gpu(gpu, monkeypatch):
     goals = np.tile(sc.goal, (B, 1))
     obstacles = sc.padded_obstacles(cfg.max_obstacles)[0]
     out = []
-    for thr in (cfg.rollouts_per_iter, 0):
-        monkeypatch.setattr(bk, "_PERMUTE_MATMUL_MAX_R", thr)
-        out.append(bk.ArenaMultiQueryPlanner(cfg, auto_capacity=True)
+    for one_hot in (True, False):
+        out.append(ArenaMultiQueryPlanner(cfg, auto_capacity=True,
+                                          one_hot_permute=one_hot)
                    .plan_batch(inits, goals, obstacles, seed=5))
     assert out[0].solved.any()
     for f in ("solved", "costs", "iterations", "paths"):

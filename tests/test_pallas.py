@@ -227,15 +227,6 @@ def test_fast_math_constant_dtheta_systems(system, rng):
     assert (np.array(vf) == np.array(ve)).mean() >= 0.99
 
 
-def test_kernel_block_must_be_power_of_two():
-    sys_ = KinematicBicycle()
-    x0 = jnp.zeros((4, 4), jnp.float32)
-    c = jnp.zeros((4, 3), jnp.float32)
-    with pytest.raises(ValueError, match="power of two"):
-        rollout_pallas(sys_, x0, c, jnp.zeros((8, 4)), num_disc=10,
-                       width=20.0, height=20.0, interpret=True, block=96)
-
-
 @pytest.mark.parametrize("overrides,match", [
     # the removed in-kernel-sampling backend's name, spelled in two parts
     ({"rollout_backend": "pallas" + "_rng"}, "unknown rollout_backend"),
